@@ -59,8 +59,7 @@ def test_bvp_progress_events(tmp_path):
     assert seen == [0.25, 0.5, 0.75, 1.0]
 
 
-@pytest.mark.skipif(not native_io.available(), reason="libvptio not built")
-def test_bvp_native_zip_reads_manifest(tmp_path):
+def test_bvp_native_zip_reads_manifest(native_lib, tmp_path):
     path, vol = _make_bvp(tmp_path, "slices")
     z = native_io.NativeZip(path)
     manifest = json.loads(z.read_file("manifest.json"))

@@ -240,7 +240,7 @@ def _envmap(seed=5):
 
 
 def test_compact_envmap_spectral():
-    """Environment-map compaction (VERDICT r4 #5): hit pixels match the
+    """Environment-map compaction: hit pixels match the
     full kernel for the same seeds; miss pixels take the env closed form
     (band-fraction x subpixel-averaged equirect quadrature), checked
     against the converged full kernel at its seed-to-seed noise floor."""
@@ -342,9 +342,9 @@ def test_compact_mcm_rgb():
 
 
 def test_compact_cache_bounded_and_bucketed():
-    """Rendering many poses keeps the per-pose cache at its LRU bound
-    (VERDICT r4 #9), and nearby poses share one lane-array shape via row
-    bucketing (ADVICE r4: no per-pose re-jit)."""
+    """Rendering many poses keeps the per-pose cache at its LRU bound,
+    and nearby poses share one lane-array shape via row bucketing (no
+    per-pose re-jit)."""
     from vpt_tpu.scene.camera import OrbitController
 
     _, comp = _renderers(streams=1)

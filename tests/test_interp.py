@@ -63,6 +63,19 @@ def test_tex2d_matches_oracle():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+def test_packed_tex1d_gather_matches_oracle():
+    """The packed (N+1, 2) pair table is sampled by one row gather per
+    sample; it must match the oracle's two-tap lerp of the raw texture,
+    including clamp-to-edge outside [0, 1]."""
+    rng = np.random.default_rng(4)
+    tex = rng.uniform(size=(256,)).astype(np.float32)
+    us = rng.uniform(-0.1, 1.1, size=(5, 40)).astype(np.float32)
+    got = np.asarray(interp.sample_tex1d(interp.pack_tex1d_corners(tex), us))
+    want = np.array([[oracle.sample_tex1d(tex, u) for u in row] for row in us])
+    assert got.shape == us.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
 def test_tex1d_matches_oracle():
     rng = np.random.default_rng(3)
     tex = rng.uniform(size=(256,)).astype(np.float32)

@@ -196,7 +196,7 @@ def test_majorant_with_slab_volume_bit_identical():
 
 
 def test_majorant_gradient_path_contract():
-    """r5 contract (VERDICT r4 #4): the autodiff surrogate SUPPORTS the
+    """r5 contract: the autodiff surrogate SUPPORTS the
     majorant mode (score-form capped/uncapped flights + alpha/m wheel —
     FD-validated in tests/test_majorant_grad.py); the taped packed-PRB
     backward (collect=True) still raises."""

@@ -1,4 +1,4 @@
-"""Majorant-mode gradients (VERDICT r4 #4): the super-voxel accelerator's
+"""Majorant-mode gradients: the super-voxel accelerator's
 autodiff surrogate must agree with central finite differences of its own
 seed-averaged image, with common random numbers — the same statistical
 protocol as tests/test_grad_fd.py, under ctx.majorant.

@@ -1,6 +1,6 @@
 """Sample streams x device mesh: the two throughput features must compose.
 
-VERDICT r1 weak item 4: with streams>1 the 4-D (B, S, H, W) radiance/
+With streams>1 the 4-D (B, S, H, W) radiance/
 transmittance leaves silently fell back to `replicated` while the 3-D lane
 leaves sharded — inconsistent placement, untested. These tests pin that
 

@@ -1,4 +1,4 @@
-"""Real jax.distributed coverage (VERDICT r4 #6): the 2-process loopback
+"""Real jax.distributed coverage: the 2-process loopback
 dryrun — coordinator bootstrap, cross-process 8-device mesh, sharded render
 and a training step through the public APIs — must produce results
 bit-identical to the single-process 8-device run (the mesh-shape

@@ -6,13 +6,7 @@ import pytest
 from vpt_tpu.scene import io, native_io
 from vpt_tpu.ops import interp
 
-needs_native = pytest.mark.skipif(
-    not native_io.available(), reason="libvptio not built"
-)
-
-
-@needs_native
-def test_native_zip_matches_python(tmp_path):
+def test_native_zip_matches_python(native_lib, tmp_path):
     path = str(tmp_path / "t.zip")
     files = {"a.txt": b"hello", "dir/b.bin": bytes(range(256)) * 10,
              "manifest.json": b'{"x": 1}'}
@@ -28,8 +22,7 @@ def test_native_zip_matches_python(tmp_path):
         z_native.read_file("missing")
 
 
-@needs_native
-def test_native_raw_matches_python(tmp_path):
+def test_native_raw_matches_python(native_lib, tmp_path):
     rng = np.random.default_rng(0)
     vol = rng.integers(0, 256, size=(6, 7, 8), dtype=np.uint8)
     path = str(tmp_path / "v.raw")
@@ -42,8 +35,7 @@ def test_native_raw_matches_python(tmp_path):
     np.testing.assert_array_equal(native, python)
 
 
-@needs_native
-def test_native_pack_corners_matches_python():
+def test_native_pack_corners_matches_python(native_lib):
     rng = np.random.default_rng(1)
     vol = rng.uniform(size=(5, 6, 7)).astype(np.float32)
     native = native_io.pack_corners_f32(vol)

@@ -179,28 +179,27 @@ def test_flat_packed_volume_bit_exact():
 
 
 def test_pack_volume_auto_picks_by_size():
-    import jax.numpy as jnp
+    """pack_volume_auto always returns a flat PackedVolume, at every size;
+    only the stored dtype follows the source (u8 for u8-quantized
+    volumes, f32 otherwise, or what the caller forces)."""
     import numpy as np
 
     from vpt_tpu.ops import interp
     from vpt_tpu.scene.volume import Volume
 
     vol = Volume.sphere_in_cube(16).density
-    # u8-quantized sources (the readers' native format) take the flat u8
-    # table at EVERY size — measured in-situ faster across the whole band
-    # and bit-exact (r4)
     q8 = interp.pack_volume_auto(vol, "full")
     assert isinstance(q8, interp.PackedVolume) and q8.table.dtype == np.uint8
     assert q8.dims == (17, 17, 17) and q8.kind == "full"
-    # non-quantized f32 sources keep the size crossover: 4-D small,
-    # flat f32 big
     volf = np.asarray(vol) * 0.7134
-    small = interp.pack_volume_auto(volf, "full")
-    assert not isinstance(small, interp.PackedVolume) and small.ndim == 4
-    big = interp.pack_volume_auto(volf, "full", flat_threshold_bytes=1)
-    assert isinstance(big, interp.PackedVolume)
-    assert big.table.dtype == np.float32
-    assert big.dims == (17, 17, 17) and big.kind == "full"
+    for kind, dims in (("full", (17, 17, 17)), ("xy", (16, 17, 17))):
+        f = interp.pack_volume_auto(volf, kind)
+        assert isinstance(f, interp.PackedVolume)
+        assert f.table.dtype == np.float32
+        assert f.dims == dims and f.kind == kind
+        assert f.table.shape == (f.n_rows, f.width)
+    forced = interp.pack_volume_auto(vol, "full", table_dtype="f32")
+    assert forced.table.dtype == np.float32
 
 
 def test_quantized_packed_volume_dtypes():
@@ -212,11 +211,10 @@ def test_quantized_packed_volume_dtypes():
     scene luck (sphere_in_cube only contains codes {0, 100, 255}). The
     shipped form is a barriered Newton residual step (interp._INV255
     comment) — exact for EVERY code, asserted here over a volume
-    containing all 256 codes. bench.py re-asserts the same property on
-    the real TPU every round (the barrier keeps XLA's simplifier from
-    folding the step back to the reciprocal form — measured load-bearing
-    on the TPU backend). bf16 is lossy within ~2^-8; non-quantized
-    sources are rejected for u8."""
+    containing all 256 codes. bench.py and chip_smoke.py re-assert the
+    same property on the GPU (the barrier keeps XLA's simplifier from
+    folding the step back to the reciprocal form). bf16 is lossy within
+    ~2^-8; non-quantized sources are rejected for u8."""
     import jax
     import jax.numpy as jnp
     import numpy as np

@@ -489,7 +489,7 @@ def test_window_storage_modes_agree():
 
 
 def test_importance_thinning_unbiased_and_deterministic():
-    """Importance-thinned scatters (VERDICT r4 #10): per pick-seed the
+    """Importance-thinned scatters: per pick-seed the
     estimator is random, but its mean over pick seeds equals the exact
     (stride 1) gradient — standard importance sampling of the per-step
     scatter sum with weights S/(m|q|). Also: identical pick_bits give

@@ -229,7 +229,7 @@ def test_pack_slab_rows_matches_host_packer():
 
 @pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 virtual devices")
 def test_fit_spectral_slab_matches_replicated_trajectory():
-    """The end-to-end slab optimizer loop (VERDICT r4 #3): density
+    """The end-to-end slab optimizer loop: density
     recovery through fit_spectral_slab follows the replicated
     fit_spectral(method='prb') trajectory — same seeds, same estimator
     (window-exact, stride 1), grads routed through the distributed slab
@@ -325,3 +325,44 @@ def test_slab_window_importance_grads_match_replicated():
     got_d = np.asarray(got["density"])
     assert np.abs(ref_d).max() > 0
     np.testing.assert_allclose(got_d, ref_d, rtol=2e-5, atol=1e-7)
+
+
+def test_fit_spectral_slab_compiles_once():
+    """Steps after the first reuse the first step's program: the optimizer
+    state starts with the replicated sharding the step returns, so the
+    second step does not recompile for a new input sharding."""
+    table = np.zeros((256, 256, 4), np.float32)
+    table[..., 0] = 0.9
+    table[..., 1] = np.linspace(0, 1, 256)[:, None]
+    vol = Volume.sphere_in_cube(VOL)
+    mesh = ray_mesh(4)
+    r = M.MCMSpectralRenderer(
+        vol, MaterialTF(table), LightConfig(direction=(1.0, 0.2, 0.5)),
+        SpectrumConfig(), MCMSpectralConfig(extinction=20.0, steps=4),
+        resolution=RES, pack_tables={"material_tf", "light_spectrum"},
+        mesh=mesh)
+    init = np.full(vol.density.shape, 0.5, np.float32)
+    target = np.zeros((RES, RES, 3), np.float32)
+    events = []
+
+    def listen(event, secs, **kw):
+        if event == "/jax/core/compile/backend_compile_duration":
+            events.append(secs)
+
+    def compiles(iterations):
+        events.clear()
+        _, losses = slab.fit_spectral_slab(
+            target, r, Camera(), init, mesh, dispatches_per_step=2,
+            iterations=iterations, learning_rate=1e-2)
+        assert len(losses) == iterations and np.isfinite(losses).all()
+        return len(events)
+
+    jax.monitoring.register_event_duration_secs_listener(listen)
+    try:
+        compiles(1)  # the small helper programs compile once per process
+        one, three = compiles(1), compiles(3)
+    finally:
+        jax.monitoring.unregister_event_duration_listener(listen)
+    # each fit builds its own jitted step: one compile, however many steps
+    assert one == 1
+    assert three == one

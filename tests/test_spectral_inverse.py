@@ -178,7 +178,7 @@ def test_sanitize_grads_bounds_spikes_and_kills_nan():
 
 
 def test_live_gradient_fraction_and_auto_stride():
-    """The adaptive-stride probe (VERDICT r4 #1): broad-support scenes get
+    """The adaptive-stride probe: broad-support scenes get
     the thinned stride, concentrated-support scenes get the exact one —
     calibrated on the r4 study scenes' measured fractions."""
     from vpt_tpu.optim import auto_initial_stride, live_gradient_fraction
@@ -263,7 +263,7 @@ def test_fit_spectral_auto_stride_probe_and_anneal():
 
 def test_fit_spectral_warns_on_stride_fallback():
     """A user-requested stride that does not divide steps is lowered with a
-    warning and recorded (ADVICE r4)."""
+    warning and recorded."""
     import warnings as W
 
     table = np.zeros((256, 256, 4), np.float32)

@@ -13,14 +13,12 @@ method/iteration), so curves compare exactly; the training loss (per-window
 MC MSE) and parameter-space density MSE are recorded alongside (the latter is
 confounded at a single view: occluded/interior voxels are unconstrained, so
 image-space convergence need not move it). Results go to
-tools/convergence_stride.json and the summary table into CONFIGS.md's
-"stride convergence" section (hand-pasted).
+tools/convergence_stride.json.
 
-Rationale (ARCHITECTURE.md "the scatter wall"): the backward is pinned by
-per-index scatter-add cost; scatter_stride=k thins table scatters k-fold —
-an unbiased estimator with ~k x table-grad variance. Gradient noise is
-already Monte-Carlo dominated, so the variance is expected to be free and
-the wall-clock win real. This script is the measurement.
+Rationale: scatter_stride=k thins table scatters k-fold — an unbiased
+estimator with ~k x table-grad variance. Whether that buys wall-clock
+depends on what scatters cost on the device; this script is the
+measurement.
 
 Run: python tools/convergence_stride.py [--res 256] [--iters 60]
 """
@@ -205,7 +203,7 @@ def main():
     ap.add_argument("--scene", default="sphere_in_cube",
                     choices=["sphere_in_cube", "two_spheres",
                              "sparse_spheres"],
-                    help="recovery scene (VERDICT r3 #4: replicate the "
+                    help="recovery scene (replicate the "
                          "study beyond one scene)")
     ap.add_argument("--seed", type=int, default=7,
                     help="optimizer sample-stream seed (replicates)")
@@ -272,7 +270,7 @@ def main():
             plan.append(("prb", int(m[len("prb-s"):])))
         elif m.startswith("prb-i"):
             # importance-thinned scatters at the same index budget as
-            # stride K (VERDICT r4 #10)
+            # stride K
             plan.append(("prb-imp", int(m[len("prb-i"):])))
         else:
             raise SystemExit(f"unknown method {m!r}")

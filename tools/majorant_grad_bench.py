@@ -1,5 +1,6 @@
-"""Majorant-mode INVERSE benchmark (VERDICT r4 #4 done-criterion): does the
-sparse-scene forward win (5.0x, CONFIGS.md sparse row) carry into fwd+bwd?
+"""Majorant-mode INVERSE benchmark: does the sparse-scene forward win of the
+majorant mode (tools/capability_configs.py config_sparse) carry into
+fwd+bwd?
 
 Measures the autodiff-surrogate gradient step (the majorant mode's gradient
 path — the taped packed-PRB backward does not support the mode) on the
@@ -9,7 +10,7 @@ per path is what the majorant mode shrinks; both the forward pass and the
 REINFORCE-surrogate backward replay every step, so the win should carry
 at roughly the forward's ratio (minus the surrogate's constant overhead).
 
-Run on the TPU: python tools/majorant_grad_bench.py [--volume 512]
+Run on the GPU: python tools/majorant_grad_bench.py [--volume 512]
 """
 
 import argparse

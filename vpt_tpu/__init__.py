@@ -1,4 +1,4 @@
-"""vpt_tpu — a TPU-native differentiable spectral volume path-tracing framework.
+"""vpt_tpu — a differentiable spectral volume path-tracing framework in JAX.
 
 A ground-up JAX/XLA rebuild of the capabilities of UL-FRI-LGM/VPT
 (spectral-volume-rendering branch): progressive volumetric path tracing

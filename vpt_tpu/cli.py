@@ -1,4 +1,4 @@
-"""vpt-tpu command line — the TPU build's "application layer".
+"""vpt-tpu command line — this build's "application layer".
 
 The reference's UI/dialog layer (Application.js + dialogs/) collapses into
 this CLI + the typed config system: load a volume, pick a renderer and tone
@@ -81,7 +81,7 @@ def _make_session(args):
     volume = _load_volume(args)
     key = args.renderer
     if getattr(args, "compaction", False) and key not in ("mcm-spectral", "mcm"):
-        # fail at the CLI layer with a clear message (ADVICE r4) instead of
+        # fail at the CLI layer with a clear message instead of
         # silently ignoring the flag for renderers without a compact mode
         raise SystemExit(
             f"--compaction is supported by mcm-spectral and mcm, not {key!r}")
@@ -257,9 +257,9 @@ def cmd_invert(args):
 def _cmd_invert_spectral(args):
     """Spectral-MCM inverse rendering (BASELINE config 4) on the packed-PRB
     fast path: recover the density grid from a converged spectral render.
-    ``--method prb --scatter-stride 4`` is the production estimator
-    (CONFIGS.md "stride convergence"); ``--method autodiff`` is the
-    REINFORCE-surrogate validation path."""
+    ``--method prb --scatter-stride 4`` is the thinned estimator
+    (tools/convergence_stride.py measures the trade); ``--method autodiff``
+    is the REINFORCE-surrogate validation path."""
     import numpy as np
 
     from vpt_tpu.models.mcm_spectral import MCMSpectralRenderer
@@ -316,8 +316,9 @@ def _cmd_invert_spectral(args):
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(prog="vpt-tpu",
-                                description="TPU-native volumetric path tracing")
+    p = argparse.ArgumentParser(
+        prog="vpt-tpu",
+        description="Differentiable spectral volume path tracing")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(sp):
@@ -397,6 +398,9 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_invert)
 
     args = p.parse_args(argv)
+    from vpt_tpu.utils.runtime import init_compile_cache
+
+    init_compile_cache()
     args.fn(args)
 
 

@@ -154,8 +154,10 @@ def spectral_backward(state0, ctx, g_image, steps: int, n_bins: int,
 
     # ---- image cotangent -> per-deposit cotangent ------------------------
     # image = (mean over streams of) einsum(radiance, bin_xyz) @ M^T
-    cm = jnp.asarray(XYZ_TO_SRGB_KERNEL) @ ctx.bin_xyz  # (3, B)
-    g_rad = jnp.einsum("hwc,cb->bhw", g_image, cm)  # (B, H, W)
+    cm = jnp.matmul(jnp.asarray(XYZ_TO_SRGB_KERNEL), ctx.bin_xyz,
+                    precision=jax.lax.Precision.HIGHEST)  # (3, B)
+    g_rad = jnp.einsum("hwc,cb->bhw", g_image, cm,
+                       precision=jax.lax.Precision.HIGHEST)  # (B, H, W)
     if streams > 1:
         # broadcast from g_rad's own pixel dims, not (resolution,
         # resolution): inside shard_map the rows axis is the LOCAL shard
@@ -293,9 +295,7 @@ def spectral_backward(state0, ctx, g_image, steps: int, n_bins: int,
 #
 # The raw backward above replays the dispatch and scatters every gradient
 # into the *raw* tables: 12 TF-corner x channel indices + 8 volume corners +
-# 2 light texels per lane per step, plus 12 slope gathers — and TPU
-# gathers/scatters cost per INDEX (~6 ns gather / ~22-95 ns scatter-add,
-# tools/gather_bench*.py, tools/scatter_bench.py). The packed variant
+# 2 light texels per lane per step, plus 12 slope gathers. The packed variant
 # applies the forward path's corner-packing playbook to the adjoint:
 # gradients scatter as ONE contiguous row per table per lane (an 18-wide
 # TF+light row, an 8-wide trilinear row) into adjoints shaped like the
@@ -453,7 +453,7 @@ def _importance_metric(tape, c_all, cb_all, want_vol, want_tf, want_env):
 def _importance_scatter(adj0, tape, c_all, cb_all, picks: int, pick_state,
                         scatter_step, steps: int,
                         want_vol=True, want_tf=False, want_env=False):
-    """Importance-thinned table scatters (VERDICT r4 #10): instead of the
+    """Importance-thinned table scatters: instead of the
     uniform stride phase, each lane samples ``picks`` step indices i.i.d.
     with probability proportional to the step's actual total scatter
     magnitude (_importance_metric), and scatters those steps reweighted
@@ -461,8 +461,8 @@ def _importance_scatter(adj0, tape, c_all, cb_all, picks: int, pick_state,
     positive wherever that table's scatter value is nonzero (standard
     importance sampling of a finite sum); variance concentrates the same
     scatter-index budget where the gradient mass is — the regime where
-    uniform stride thinning fails (sparse-gradient scenes, CONFIGS.md
-    "stride convergence").
+    uniform stride thinning fails (sparse-gradient scenes,
+    tools/convergence_stride.py).
 
     Mechanics: the per-step tape fields a scatter needs are pre-packed
     into ONE (steps * lanes, C) row table (ints/bools bit-cast into f32
@@ -566,9 +566,8 @@ def spectral_backward_packed(state0, ctx, g_image, steps: int, n_bins: int,
     (state_out, image, grads) with grads addressing the RAW tables —
     mathematically identical to ``spectral_backward`` on the unpacked ctx.
 
-    ``wrt``: which parameters to differentiate. Scatter cost dominates the
-    backward (tools/scatter_bench.py), so skipping unneeded tables is a
-    direct speedup — e.g. inverse rendering of density only skips the TF
+    ``wrt``: which parameters to differentiate. Each table skipped drops
+    its scatters — e.g. inverse rendering of density only skips the TF
     row scatter entirely.
 
     ``scatter_stride``: k > 1 enables stochastic gradient thinning — only
@@ -751,8 +750,10 @@ def spectral_backward_packed(state0, ctx, g_image, steps: int, n_bins: int,
         return state_out, tape
 
     # ---- image cotangent -> per-deposit cotangent (as the raw path) ------
-    cm = jnp.asarray(XYZ_TO_SRGB_KERNEL) @ ctx.bin_xyz  # (3, B)
-    g_rad = jnp.einsum("hwc,cb->bhw", g_image, cm)
+    cm = jnp.matmul(jnp.asarray(XYZ_TO_SRGB_KERNEL), ctx.bin_xyz,
+                    precision=jax.lax.Precision.HIGHEST)  # (3, B)
+    g_rad = jnp.einsum("hwc,cb->bhw", g_image, cm,
+                       precision=jax.lax.Precision.HIGHEST)
     if streams > 1:
         # broadcast from g_rad's own pixel dims, not (resolution,
         # resolution): inside shard_map the rows axis is the LOCAL shard
@@ -764,19 +765,17 @@ def spectral_backward_packed(state0, ctx, g_image, steps: int, n_bins: int,
     g_rad_scaled = g_rad / m_final[None]
 
     def deposit_cotangent(pre_bin):
-        # B is tiny (12): a B-way masked sum on the VPU beats a per-lane
-        # gather (take_along_axis lowers to a 1M-index gather per step)
+        # B is tiny (12): a B-way masked sum of elementwise selects instead
+        # of a per-lane gather (take_along_axis lowers to a 1M-index
+        # gather per step)
         sel = jnp.zeros(pre_bin.shape, jnp.float32)
         for b in range(n_bins):
             sel = sel + jnp.where(pre_bin == b, g_rad_scaled[b], 0.0)
         return sel
 
     # ---- reverse scan: cotangent propagation + per-step row scatters -----
-    # Scatters stay INSIDE the scan, one per table per step: a single
-    # batched scatter over all steps x lanes was measured ~25% SLOWER
-    # (XLA:TPU scatter-add is sort-based, superlinear in update count), and
-    # scatter cost is per-INDEX (~22-95 ns, tools/scatter_bench.py), so the
-    # only real levers are emitting fewer indices — one packed corner ROW
+    # Scatters stay inside the scan, one per table per step. The levers on
+    # their cost are the number of indices emitted — one packed corner row
     # per table per lane-step, the ``wrt`` gating, and ``scatter_stride``.
     def scatter_step(adj, t, c, cb, weight=1.0):
         """Analytic per-step table scatters for one tape row, given the
@@ -820,7 +819,7 @@ def spectral_backward_packed(state0, ctx, g_image, steps: int, n_bins: int,
                 v18.reshape(-1, CC))
         if want_env:
             # one 12-wide row: 4 corners x 3 channels, the wavelength band's
-            # channel selected per lane (one-hot masks on the VPU)
+            # channel selected per lane (one-hot elementwise masks)
             efx, efy = t["env_fx"], t["env_fy"]
             ew00 = (1 - efx) * (1 - efy)
             ew01 = efx * (1 - efy)
@@ -1096,7 +1095,7 @@ def _prb_many_core(state0, ctx, seeds, g_image, steps, n_bins, volume_filter,
 def _tape_forward_sweep(state0, ctx, seeds, steps, n_bins, volume_filter,
                         wrt):
     """One taped forward scan over the K dispatches, stacking per-dispatch
-    tapes (K x steps x lanes fields in HBM). Returns
+    tapes (K x steps x lanes fields in device memory). Returns
     (state_f, tapes, image, m_final)."""
     def body_f(state, seed):
         state2, tape = spectral_backward_packed(
@@ -1154,14 +1153,29 @@ def _prb_many_tape(state0, ctx, seeds, g_image, steps, n_bins, volume_filter,
     return state_f, image, grads
 
 
-# above this many bytes of stacked tape, window_storage="auto" falls back
-# to the forward-storage (re-simulate) mode; v5e has 16 GB HBM and the
-# biggest co-resident tenant is the 256^3 packed adjoint (544 MB)
-_TAPE_AUTO_LIMIT_BYTES = 6 * 1024**3
+# window_storage="auto" keeps the stacked tape while it takes at most this
+# share of the device's memory limit, and re-simulates ("forward") above
+# it. The tape shares the device with the packed tables (a 512^3 u8
+# corner table is 1.08 GB), the packed f32 adjoint (0.54 GB at 256^3), the
+# lane state and XLA's temporaries of the reverse scan, so it gets a
+# quarter and they keep the rest.
+_TAPE_MEMORY_SHARE = 0.25
+# the limit where the backend reports no memory limit (the CPU)
+_TAPE_LIMIT_UNREPORTED_BYTES = 6 * 1024**3
+
+
+def _tape_auto_limit_bytes(device=None) -> int:
+    """Largest stacked tape window_storage="auto" keeps on ``device``
+    (default: the first local device)."""
+    stats = (device or jax.local_devices()[0]).memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    if not limit:
+        return _TAPE_LIMIT_UNREPORTED_BYTES
+    return int(limit * _TAPE_MEMORY_SHARE)
 
 
 def _window_tape_bytes(state0, steps, n_dispatches, wrt):
-    """Static estimate of the stacked-tape HBM footprint."""
+    """Static estimate of the stacked-tape device-memory footprint."""
     lanes = int(np.prod(state0.px.shape))
     n_fields = 12  # base: emitted/respawn/pre_bin/alpha/albedo/g/hg_cos/...
     if "density" in wrt:
@@ -1254,9 +1268,11 @@ def prb_render_and_grads_many(state0, ctx, seeds, g_image, steps: int,
 
     ``window_storage``: "tape" stores all K dispatch tapes from ONE taped
     forward sweep (fastest — saves a full re-simulate; K x steps x lanes
-    HBM); "forward" stores only per-dispatch start states and re-simulates
+    fields in device memory); "forward" stores only per-dispatch start
+    states and re-simulates
     each dispatch taped during the reverse scan (low memory); "auto"
-    picks "tape" while the stacked tape stays under ~6 GB.
+    picks "tape" while the stacked tape stays under a quarter of the
+    device's memory (_tape_auto_limit_bytes).
     """
     wrt = frozenset(wrt)
     if not window:
@@ -1266,7 +1282,7 @@ def prb_render_and_grads_many(state0, ctx, seeds, g_image, steps: int,
     if window_storage == "auto":
         window_storage = (
             "tape" if _window_tape_bytes(state0, steps, seeds.shape[0], wrt)
-            <= _TAPE_AUTO_LIMIT_BYTES else "forward")
+            <= _tape_auto_limit_bytes() else "forward")
     if window_storage == "tape":
         return _prb_many_tape(state0, ctx, seeds, g_image, steps, n_bins,
                               volume_filter, wrt, scatter_stride,
@@ -1307,7 +1323,7 @@ def prb_loss_and_grads(state0, ctx, seeds, target, steps: int, n_bins: int,
     if window_storage == "auto":
         window_storage = (
             "tape" if _window_tape_bytes(state0, steps, seeds.shape[0], wrt)
-            <= _TAPE_AUTO_LIMIT_BYTES else "forward")
+            <= _tape_auto_limit_bytes() else "forward")
     if window_storage == "tape":
         state_f, tapes, image, m_final = _tape_forward_sweep(
             state0, ctx, seeds, steps, n_bins, volume_filter, wrt)

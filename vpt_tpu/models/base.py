@@ -1,6 +1,6 @@
 """Renderer protocol + string-keyed factory.
 
-TPU-native shape of the reference's renderer layer
+JAX shape of the reference's renderer layer
 (renderers/AbstractRenderer.js:56-112 + factory dispatch,
 WebGPURendererFactory.js:35-50): a renderer is a pair of pure jitted
 functions over an explicit state pytree —

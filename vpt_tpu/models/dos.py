@@ -1,6 +1,6 @@
 """Directional occlusion shading (DOS) renderer.
 
-TPU-native rebuild of /root/reference/src/glsl/renderers/DOSRenderer.glsl +
+JAX rebuild of the reference's src/glsl/renderers/DOSRenderer.glsl +
 DOSRenderer.js: a front-to-back *slice sweep* through view-space depth where
 each slice composites emission-absorption color modulated by an occlusion
 buffer, and the occlusion buffer is advanced by cone-sampling itself at

@@ -1,6 +1,6 @@
 """Local ambient occlusion + soft shadows renderer (LAO).
 
-TPU-native rebuild of /root/reference/src/glsl/renderers/LAORenderer.glsl:
+JAX rebuild of the reference's src/glsl/renderers/LAORenderer.glsl:
 an emission-absorption march where every step darkens the TF color by
 (a) a light-cone ambient-occlusion integral (glsl LAO loop: density samples
 along the jittered half-vector weighted (1-t)^2) and (b) a soft-shadow term
@@ -60,7 +60,9 @@ def lao_frame(inv_mvp, density, tf_table, light_position, extinction,
     step = 1.0 / slices
 
     # vLight = (inv_mvp @ [light, 1]).xyz without the w divide
-    lv = inv_mvp @ jnp.concatenate([light_position, jnp.ones(1, jnp.float32)])
+    lv = jnp.matmul(
+        inv_mvp, jnp.concatenate([light_position, jnp.ones(1, jnp.float32)]),
+        precision=jax.lax.Precision.HIGHEST)
     lx, ly, lz = lv[0], lv[1], lv[2]
 
     # per-pixel NDC and its constant "random" pair

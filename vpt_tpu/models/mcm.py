@@ -1,6 +1,6 @@
 """RGB multiple-scattering delta-tracking path tracer (MCMCompute).
 
-TPU-native rebuild of /root/reference/src/wgsl/renderers/MCMComputeRenderer.wgsl
+JAX rebuild of the reference's src/wgsl/renderers/MCMComputeRenderer.wgsl
 (:92-148 render loop, :150-210 reset) and its host
 WebGPUMCMComputeRenderer.js. Same lane-masked vectorization strategy as the
 spectral renderer (models/mcm_spectral.py); differences:
@@ -262,7 +262,7 @@ class MCMRenderer:
             **self._static_ctx,
         )
 
-    # bounded per-pose cache, like MCMSpectralRenderer (VERDICT r4 #9)
+    # bounded per-pose cache, like MCMSpectralRenderer
     COMPACT_CACHE_POSES = 8
 
     def _compact_tables(self, camera):

@@ -1,6 +1,6 @@
 """Spectral multiple-scattering delta-tracking path tracer (the north star).
 
-TPU-native rebuild of the semantics of
+JAX rebuild of the semantics of
 /root/reference/src/wgsl/renderers/MCMSpectralComputeRenderer.wgsl:107-326 and
 its host /root/reference/src/js/renderers/WebGPUMCMSpectralComputeRenderer.js.
 
@@ -88,8 +88,7 @@ def _pixel_grid(resolution, streams: int = 1):
     """Per-lane pixel coordinates, optionally with S independent sample
     streams per pixel (lane shape (S, H, W)).
 
-    Streams amortize the TPU's per-gather-op cost (which is strongly
-    sub-linear in lane count) by keeping S photons in flight per pixel.
+    Streams keep S photons in flight per pixel (more lanes per dispatch).
     Stream s seeds its RNG chain as pixel row (y + s*resolution) — exactly
     the chain a taller framebuffer would use, so stream 0 is bit-identical
     to the reference layout and renders stay mesh-shape/stream-count
@@ -262,7 +261,7 @@ def _render_body(p: SpectralState, rng, score, sx, sy, ctx: SpectralCtx,
         # (kernels/spectral_backward.py), unbiased through the event wheel
         # AND the escape boundary. Forward values are unchanged.
         #
-        # Majorant mode (VERDICT r4 #4): the local sampling rate is
+        # Majorant mode: the local sampling rate is
         # extinction * m with m a DETACHED sampling-distribution choice
         # (any valid bound gives the same expectation, so m carries no
         # physical gradient). An uncapped flight contributes the collision
@@ -288,12 +287,6 @@ def _render_body(p: SpectralState, rng, score, sx, sy, ctx: SpectralCtx,
     # material lookup: volume density -> 2D TF at (wavelength_t, density)
     # (sample_volume_fn overrides the sampler, e.g. the slab-sharded
     # distributed gather in parallel/slab.py)
-    #
-    # Note: redirecting dead lanes' (OOB / majorant-capped) sample coords to
-    # a fixed "hot" row was measured and REJECTED: XLA:TPU gather cost is
-    # flat in address locality even on multi-GB tables (~9.4 ns/idx random
-    # over 2.1 GB == random over 2 MB), and an all-same-address stream is
-    # ~60% SLOWER (same-bank serialization) — see ARCHITECTURE.md.
     t = (p.wavelength - 400.0) / 300.0
     sample_volume = sample_volume_fn or interp.sample_volume
     dens = sample_volume(ctx.density, px, py, pz, volume_filter)
@@ -423,10 +416,12 @@ def radiance_to_rgb(radiance, bin_xyz):
     XYZ map is linear, so mean-then-convert == convert-then-mean)."""
     if radiance.ndim == 4:
         radiance = jnp.mean(radiance, axis=1)
-    xyz = jnp.einsum("bhw,cb->hwc", radiance, bin_xyz)
+    xyz = jnp.einsum("bhw,cb->hwc", radiance, bin_xyz,
+                     precision=jax.lax.Precision.HIGHEST)
     from vpt_tpu.ops.spectral import XYZ_TO_SRGB_KERNEL
 
-    return xyz @ jnp.asarray(XYZ_TO_SRGB_KERNEL).T
+    return jnp.matmul(xyz, jnp.asarray(XYZ_TO_SRGB_KERNEL).T,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 @functools.partial(
@@ -477,7 +472,7 @@ def render_many(
     volume_filter: str = "linear",
 ):
     """K render dispatches in one device program: lax.scan over per-dispatch
-    frame seeds (the TPU-idiomatic replacement for the reference's
+    frame seeds (the replacement for the reference's
     one-rAF-tick-one-dispatch loop — amortizes all host/dispatch overhead).
 
     ``seeds``: (K,) uint32. Bit-identical to K sequential ``render`` calls
@@ -601,7 +596,8 @@ class MCMSpectralRenderer:
         # for ~3x dispatch speed); disable to keep the raw parameterization
         # (e.g. when differentiating w.r.t. the tables). It accepts a bool
         # or a subset of {"density", "material_tf", "light_spectrum"} —
-        # e.g. huge volumes whose 8x packed table would not fit HBM can keep
+        # e.g. huge volumes whose 8x packed table would not fit the device
+        # can keep
         # the raw grid while the TF/light still pack.
         density = self.volume.density
         mtf = self.material_tf.table
@@ -611,14 +607,12 @@ class MCMSpectralRenderer:
         elif pack_tables is False:
             pack_tables = set()
         if self.volume.filter in ("linear", "quasicubic"):
-            # packed tables are stored FLAT (interp.PackedVolume): XLA:TPU
-            # lays out big 4-D tables planes-major, which would split every
-            # corner row across memory (the "layout wall", ARCHITECTURE.md)
+            # packed tables are stored flat (interp.PackedVolume)
             if "density" in pack_tables:
                 density = interp.pack_volume_auto(density, "full")
             elif "density_xy" in pack_tables:
                 # 4x-memory half packing: 2 gathers/step instead of 8 —
-                # the mode for volumes whose 8x table exceeds HBM
+                # the mode for volumes whose 8x table exceeds device memory
                 density = interp.pack_volume_auto(density, "xy")
             if "material_tf" in pack_tables and "light_spectrum" in pack_tables:
                 # fused (257,257,18) table: the light's packed pair rides the
@@ -673,7 +667,7 @@ class MCMSpectralRenderer:
         self.compaction = compaction
         if compaction:
             # ValueError (not assert): these are user-configuration errors
-            # and must survive python -O (ADVICE r4)
+            # and must survive python -O
             if self.config.blur != 0.0:
                 raise ValueError(
                     "compaction requires blur=0 (depth of field widens the "
@@ -729,7 +723,7 @@ class MCMSpectralRenderer:
         return shard_spectral_state(state, self.mesh)
 
     # bound on _compact_tables' per-pose cache: an orbit/animation renders
-    # many poses and must not grow host memory without bound (VERDICT r4 #9)
+    # many poses and must not grow host memory without bound
     COMPACT_CACHE_POSES = 8
 
     def _compact_tables(self, camera):

@@ -10,7 +10,7 @@ every sample and never touches the volume
 runs exactly this trivial loop for silhouette-exterior threads — it just
 cannot drop them, because its threads ARE the pixel grid).
 
-On TPU the lane set is ours to choose, so compaction:
+Here the lane set is ours to choose, so compaction:
 
 1. classifies pixels host-side with a CONSERVATIVE pixel-pyramid vs cube
    separating-plane test (a pixel is "miss" only if its whole AA-jitter
@@ -40,8 +40,8 @@ beyond the pixel pyramid), no mesh. Environment maps ARE supported
 the subpixel-averaged equirect lookup (analytic_miss_radiance_env);
 RGB MCM gets the same machinery in models/mcm_compact.py.
 
-Measured (tools/compact_bench.py, one v5e chip, default pose, 512^2 x 4
-streams, 128^3): see ARCHITECTURE.md "Hit-lane compaction".
+Benchmark: tools/compact_bench.py (default pose, 512^2 x 4 streams,
+128^3); not yet measured on the GPU.
 """
 
 from __future__ import annotations
@@ -190,7 +190,7 @@ def analytic_miss_radiance(inv_mvp, resolution, light_256, light_direction,
 
 
 # --------------------------------------------------------------------------
-# Environment-map closed form (VERDICT r4 #5): a miss ray under an env map
+# Environment-map closed form: a miss ray under an env map
 # deposits escape = 2.7 * env_channel(band(lambda))(dir) every sample
 # (mcm_spectral._sample_environment). lambda and the AA jitter are
 # independent uniforms, so the per-bin mean factorizes:
@@ -289,7 +289,7 @@ def build_lane_tables(hit: np.ndarray, resolution: int, streams: int,
     ``row_bucket``: round the lane-row count M up to a multiple of this, so
     nearby camera poses (whose hit counts differ slightly) produce the SAME
     lane-array shape and reuse the compiled render program instead of
-    re-jitting per pose (ADVICE r4). Padding lanes are harmless — they
+    re-jitting per pose. Padding lanes are harmless — they
     march pixel (0, 0)'s chain but scatter to the dump row."""
     iy, ix = np.nonzero(hit)
     n_hit = ix.size

@@ -1,6 +1,6 @@
 """Single-scattering Monte-Carlo renderer (MCS).
 
-TPU-native rebuild of /root/reference/src/glsl/renderers/MCSRenderer.glsl:
+JAX rebuild of the reference's src/glsl/renderers/MCSRenderer.glsl:
 per frame, each ray Woodcock-samples one collision (``sampleDistance``,
 glsl:70-87), then ratio-tracks transmittance toward a per-frame random
 scattering direction (``sampleTransmittance``, glsl:89-104); shade =
@@ -427,20 +427,20 @@ class MCSRenderer:
 
 
 # ==========================================================================
-# Persistent-lane MCS — the TPU-idiomatic fast path
+# Persistent-lane MCS — the fixed-trip fast path
 # ==========================================================================
 
 class MCSPersistentState(NamedTuple):
     """Per-lane single-scatter state machine (one persistent lane per pixel).
 
-    The frame-based path above is reference-exact but structurally hostile
-    to TPU: each frame runs two straggler-gated while_loops (measured at
-    512^2: per-lane mean 12.5 distance trips vs max 57 — every frame pays
-    the max; tools/mcs_profile.py), and a finished lane idles until the
-    slowest one exits. Persistent lanes are the spectral megakernel's
-    answer applied to MCS: a fixed-trip fori_loop in which every lane that
-    finishes a sample deposits into its incremental mean and immediately
-    starts the next one — zero straggler wait, every lane-step useful.
+    The frame-based path above is reference-exact but straggler-gated:
+    each frame runs two while_loops that every lane waits out, so every
+    frame pays the slowest lane's collision chain, and a finished lane idles
+    until the slowest one exits. Persistent lanes are the spectral
+    megakernel's answer applied to MCS: a fixed-trip fori_loop in which
+    every lane that finishes a sample deposits into its incremental mean and
+    immediately starts the next one — zero straggler wait, every lane-step
+    useful.
 
     Estimator: same single-scattering expectation as the reference
     (Woodcock distance -> diffuse * light * ratio-tracked transmittance;

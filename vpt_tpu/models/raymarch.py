@@ -1,6 +1,6 @@
 """Deterministic ray-march renderer family: EAM, MIP, ISO, Depth.
 
-TPU-native rebuilds of the reference's fragment-shader ray marchers (the
+JAX rebuilds of the reference's fragment-shader ray marchers (the
 WebGL2 stack, plus the WGSL EAM):
   - EAM  : front-to-back emission-absorption compositing
            (/root/reference/src/glsl/renderers/EAMRenderer.glsl:49-76,

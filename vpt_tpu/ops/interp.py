@@ -1,4 +1,4 @@
-"""Explicit texture sampling: the TPU has no sampler hardware, so GPU-style
+"""Explicit texture sampling: XLA exposes no texture sampler, so GPU-style
 nearest/linear/quasi-cubic filtering with clamp-to-edge addressing is done
 with gathers + arithmetic.
 
@@ -7,10 +7,7 @@ texel centers at (i + 0.5)/N, linear filter weights from the fractional
 offset, clamp-to-edge addressing. Quasi-cubic mode is the smoothstep-warped
 trilinear of /root/reference/src/glsl/mixins/quasiCubicSampling.glsl:3-9.
 
-Gathers lower to XLA gather on TPU. The product ships NO Pallas kernel:
-a Pallas port of the megakernel step was built and measured 300-700x
-slower than the XLA lowering (bit-exact; tools/pallas_step.py,
-ARCHITECTURE.md "Pallas: status"), so XLA gather IS the production path.
+Gathers lower to XLA's gather; the product ships no hand-written kernel.
 """
 
 from __future__ import annotations
@@ -24,15 +21,8 @@ import numpy as np
 class PackedVolume:
     """A packed corner table stored FLAT: (rows, C) + static padded dims.
 
-    Why not keep the natural (D, Hp, Wp, C) array: XLA:TPU picks a
-    planes-major layout ({2,1,0,3}) for large 4-D tables with a tiny
-    trailing dim, physically splitting every packed corner row across C
-    planes gigabytes apart — and inserts a full-table layout copy at
-    dispatch. Measured on the 512^3 xy table: in-situ gathers run ~57 ns/
-    index against the 4-D table vs ~12 ns against the same data stored
-    (rows, C) — the whole corner-packing win silently destroyed by layout.
-    Storing flat pins rows physically contiguous (ARCHITECTURE.md "the
-    layout wall").
+    Stored flat so each corner row is one contiguous run of C values,
+    whatever layout the compiler would pick for a 4-D array.
 
     ``dims``: the padded 3-D table dims — (D+1, H+1, W+1) for kind="full"
     (C=8), (D, H+1, W+1) for kind="xy" (C=4). Registered as a pytree with
@@ -75,9 +65,7 @@ class PackedVolume:
         when the source volume is u8-quantized — i.e. every density equals
         round(d*255)/255, the volume readers' native format — and the
         samplers dequantize with the identical astype(f32)/255
-        expression), or "bf16" (half bytes, lossy ~2^-9 relative).
-        Measured at the 544 MB table: gathers 15.6 (f32) -> 12.0 (u8)
-        ns/idx (tools/layout_hybrid.py)."""
+        expression), or "bf16" (half bytes, lossy ~2^-9 relative)."""
         import numpy as np
 
         packed = (pack_volume_corners_xy if kind == "xy"
@@ -107,50 +95,22 @@ class PackedVolume:
         )
 
 
-# Measured crossover (one v5e chip, 512^2 x 4-stream spectral dispatch):
-# the 4-D planes-major layout gathers ~74 Mpaths/s at 68 MB but degrades
-# with table size (29 at 134 MB, 25 at 230 MB, 16 at 544 MB, ~6 at 2.1 GB);
-# the flat (rows, C) layout is size-INDEPENDENT at ~37 Mpaths/s. Keep 4-D
-# below ~100 MB, go flat above.
-FLAT_TABLE_THRESHOLD_BYTES = 100_000_000
+def pack_volume_auto(density, kind: str = "full", table_dtype: str = "auto"):
+    """Pack a raw (D, H, W) grid into a flat PackedVolume.
 
-
-def pack_volume_auto(density, kind: str = "full",
-                     flat_threshold_bytes: int = FLAT_TABLE_THRESHOLD_BYTES,
-                     table_dtype: str = "auto"):
-    """Pack a raw (D, H, W) grid choosing the fastest device representation
-    by table size: the natural 4-D array while small (XLA's planes-major
-    layout maps the corner dim onto sublanes — the fastest gather), a flat
-    PackedVolume once large (the 4-D layout collapses at scale — see
-    PackedVolume's docstring / ARCHITECTURE.md "the layout wall").
-
-    ``table_dtype``: "auto" (default) stores the table as a flat u8
-    PackedVolume whenever the source volume is u8-quantized (every
-    density == k/255 — the volume readers' native format): BIT-EXACT, and
-    measured in-situ FASTER at every size (74.3 -> 88.9 Mpaths/s on the
-    68 MB headline table, 38.1 -> 50.1 at 544 MB, 26.7 -> 50.1 on the
-    512^3 full table that only fits HBM as u8 —
-    tools/layout_hybrid.py, round 4). Non-quantized f32 sources keep the
-    size-based 4-D/flat-f32 crossover. Explicit "f32" / "u8" / "bf16"
-    force a representation ("u8"/"bf16" imply flat)."""
+    ``table_dtype``: "auto" (default) stores u8 whenever the source volume
+    is u8-quantized (every density == k/255 — the volume readers' native
+    format): bit-exact, and a quarter of the f32 table's bytes. Other
+    sources store f32. Explicit "f32" / "u8" / "bf16" force a dtype."""
     import numpy as np
 
-    if table_dtype not in ("auto", "f32"):
-        return PackedVolume.pack(density, kind, table_dtype=table_dtype)
     if table_dtype == "auto":
         # exactness checked on the RAW grid (corners are copies of raw
         # values; the packed table is 4-8x bigger)
         d = np.asarray(density)
         q = np.round(d * 255.0)
-        if np.allclose(q / 255.0, d, atol=1e-7):
-            return PackedVolume.pack(density, kind, table_dtype="u8")
-    packed = (pack_volume_corners_xy if kind == "xy"
-              else pack_volume_corners)(density)
-    if packed.nbytes >= flat_threshold_bytes:
-        return PackedVolume(
-            jnp.asarray(packed.reshape(-1, packed.shape[-1])),
-            packed.shape[:3], kind)
-    return jnp.asarray(packed)
+        table_dtype = "u8" if np.allclose(q / 255.0, d, atol=1e-7) else "f32"
+    return PackedVolume.pack(density, kind, table_dtype=table_dtype)
 
 
 def _coords(u, n):
@@ -172,10 +132,9 @@ def _nearest_coords(u, n):
 def pack_volume_corners(density):
     """Precompute every trilinear footprint as one contiguous 8-value row.
 
-    TPU gathers pay per gather *op*, not per element: one row gather of 8
-    contiguous values costs the same as one scalar gather, so packing turns
-    the 8 corner fetches of trilinear sampling into a single gather (~3.5x
-    on the volume-bound render dispatch) at 8x memory.
+    Packing turns the 8 corner fetches of trilinear sampling into a single
+    gather of 8 contiguous values, at 8x memory. Whether that beats the
+    8-tap raw lookup on a given device is a measurement (ROADMAP Speed 3).
 
     Input (D, H, W); output (D+1, H+1, W+1, 8) where row [z, y, x] holds the
     corners of the cell whose low corner is voxel (z-1, y-1, x-1) of the
@@ -207,10 +166,10 @@ def pack_volume_corners_xy(density):
     gathers (z0 and z1 planes) instead of eight scalar ones, at 4x memory
     instead of the full table's 8x.
 
-    This is the big-volume mode: a 512^3 grid's full corner table is
-    4.3 GB where the xy table is 2.1 GB, and gathers dominate dispatch
-    time, so 2 gathers/step recovers most of the full packing's win where
-    the 8x table doesn't fit. Bit-identical to the raw 8-gather path.
+    This is the big-volume mode: a 512^3 grid's full f32 corner table is
+    4.3 GB where the xy table is 2.1 GB, so 2 gathers/step is the packed
+    option when the 8x table does not fit the device. Bit-identical to the
+    raw 8-gather path.
     """
     import numpy as np
 
@@ -273,9 +232,8 @@ def pack_volume_corners_jnp(density):
     the forward costs ONE row gather per sample (vs 8 scalar gathers from the
     raw grid), the backward ONE row scatter-add into the packed table, and
     autodiff of this function then contracts the packed-table adjoint back to
-    the raw grid with dense shifted adds (the pack transpose). XLA's TPU
-    gather/scatter cost ~6ns per *index* regardless of row width, so this is
-    ~8x fewer gather/scatter ops on the differentiable render path.
+    the raw grid with dense shifted adds (the pack transpose): 8x fewer
+    gather/scatter indices on the differentiable render path.
     """
     p = jnp.pad(density, 1, mode="edge")
     return jnp.stack(
@@ -330,30 +288,24 @@ def pack_tex2d_with_tex1d_jnp(tex2d, tex1d):
     return jnp.concatenate([t2, aux], axis=-1)
 
 
-# Bit-exact u8 dequantization (round-5 correction of the round-4 record):
-# XLA lowers x / 255.0 to a reciprocal multiply that differs from the host
-# readers' IEEE division by 1 ulp for 126 of the 256 code points. The r4
-# "compensated two-term" constant split was NOT a fix — k * c_hi already
-# rounds (8-bit k x 24-bit c_hi = 32-bit product), and that rounding error
-# is what the correction must capture, so the two-term form is itself
-# wrong for 121/256 codes in pure f32 arithmetic; the r4 on-chip
-# "max-diff 0.0" was scene luck (sphere_in_cube only contains codes
-# {0, 100, 255}, none of them bad). The correct form is one Newton
-# residual step: t = k*c; r = k - t*255; out = t + r*c — exact for all
-# 256 codes in faithful f32 arithmetic (r recovers t's rounding error
-# scaled by 255, exactly representable because k and 255*t are close).
-# The optimization_barrier is load-bearing: XLA:TPU's algebraic
-# simplifier otherwise folds the whole expression back to the single
-# reciprocal multiply (measured: the exact 126-code mismatch signature).
-# Verified over all 256 codes on TPU and CPU, isolated and inside the
-# sampler (tests/test_packed_tables.py; bench.py re-checks on-chip every
-# round). Measured cost: none (gather wall, 180 M lane-steps/s either way).
+# Bit-exact u8 dequantization: XLA lowers x / 255.0 to a reciprocal
+# multiply that differs from the host readers' IEEE division by 1 ulp for
+# 126 of the 256 code points. A two-term constant split does not fix it
+# (k * c_hi already rounds, and that rounding error is what the correction
+# must capture). The correct form is one Newton residual step:
+# t = k*c; r = k - t*255; out = t + r*c — exact for all 256 codes in
+# faithful f32 arithmetic (r recovers t's rounding error scaled by 255,
+# exactly representable because k and 255*t are close). The
+# optimization_barrier keeps XLA's algebraic simplifier from folding the
+# whole expression back to the single reciprocal multiply. Checked over
+# all 256 codes, isolated and inside the sampler, on the CPU
+# (tests/test_packed_tables.py) and on the GPU (bench.py, chip_smoke.py).
 _INV255 = np.float32(1.0 / 255.0)
 
 
 def _dequantize_rows(rows):
     """Gathered corner rows -> f32 lerp operands. Quantized table dtypes
-    (the layout-wall bandwidth lever, ARCHITECTURE.md, round 4): u8
+    (fewer bytes per gathered row): u8
     dequantizes bit-exactly to the readers' `x.astype(f32)/255` values
     via a barriered Newton residual step (see _INV255 comment), so
     u8-quantized source volumes round-trip EXACTLY; bf16 is a lossy
@@ -415,9 +367,8 @@ def sample_volume(density, u, v, w, mode: str = "linear"):
     the 3D-texture convention the renderers rely on.
 
     ``density`` is a raw (D, H, W) grid, a PackedVolume (the fast path:
-    flat corner table + static dims), or a legacy 4-D packed corner table
-    (accepted for compatibility; prefer PackedVolume — see its docstring
-    for why the 4-D layout is slow on TPU at scale).
+    flat corner table + static dims), or a 4-D packed corner table (the
+    slab-sharded path and in-graph packing pass these).
     """
     if isinstance(density, PackedVolume):
         fn = _sample_volume_packed_xy if density.kind == "xy" else _sample_volume_packed
@@ -540,8 +491,8 @@ def pack_tex2d_with_tex1d(tex2d, tex1d):
     """Fuse a (W,) 1D table that shares the 2D texture's x coordinate into
     the packed corner rows: output (H+1, W+1, 4*C + 2).
 
-    Rationale: TPU gathers cost per *op*, not per element, so a lookup pair
-    that shares its index can ride one gather for free. The spectral MCM
+    Rationale: a lookup pair that shares its index can ride one gather
+    instead of two. The spectral MCM
     kernel samples the material TF at (wavelength_t, density) and the light
     spectrum at wavelength_t with the SAME normalized x coordinate and the
     same 256-texel width (reference MCMSpectralComputeRenderer.wgsl:62-80),
@@ -615,31 +566,15 @@ def pack_tex1d_corners(tex):
 
 def sample_tex1d(tex, u):
     """Linear sample of a (N,) texture (or an (N+1, 2) packed pair table
-    from pack_tex1d_corners) at normalized u.
-
-    The packed path routes the row selection through the MXU as a one-hot
-    matmul instead of a gather: XLA's TPU gather costs ~6ns/index regardless
-    of table size, while a (lanes, N+1) one-hot times (N+1, 2) matmul at
-    precision=HIGHEST is ~2.4x faster AND bit-exact (the bf16x3/x6
-    decomposition reconstructs each f32 table value exactly when the other
-    factor is 1.0; zeros contribute exactly 0). Measured: tools/gather_bench*.
-    """
+    from pack_tex1d_corners) at normalized u. The packed path gathers one
+    pair row per sample."""
     if tex.ndim == 2:
-        Np1, _ = tex.shape
-        N = Np1 - 1
+        N = tex.shape[0] - 1
         s = u * N - 0.5
         i0 = jnp.floor(s)
         frac = s - i0
         b = jnp.clip(i0.astype(jnp.int32) + 1, 0, N)
-        flatb = b.reshape(-1)
-        onehot = (
-            flatb[:, None] == jnp.arange(Np1, dtype=jnp.int32)[None]
-        ).astype(tex.dtype)
-        rows = jnp.dot(
-            onehot, tex,
-            preferred_element_type=tex.dtype,
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(b.shape + (2,))
+        rows = jnp.take(tex, b, axis=0)
         return rows[..., 0] + (rows[..., 1] - rows[..., 0]) * frac
     (N,) = tex.shape
     x0, x1, fx = _coords(u, N)

@@ -3,10 +3,10 @@
 The reference's delta tracking uses one global majorant (the `extinction`
 uniform scales the TF alpha, so the sampling rate is `extinction` everywhere
 — MCMSpectralComputeRenderer.wgsl:123-139). In thin or empty regions that
-wastes almost every Woodcock step on null collisions; on TPU, where each
-step costs a fixed slate of gathers for *all* lanes, steps-per-path is the
-whole cost model, so a big volume (BASELINE config 5) is dominated by
-photons null-colliding their way through near-empty space.
+wastes almost every Woodcock step on null collisions; in the lockstep kernel
+each step costs a fixed slate of gathers for *all* lanes, so steps-per-path
+is the whole cost model, and a big volume (BASELINE config 5) is dominated
+by photons null-colliding their way through near-empty space.
 
 This module builds a small per-scene table that lets each lane take the
 longest statistically exact free flight its surroundings allow:
@@ -31,7 +31,7 @@ longest statistically exact free flight its surroundings allow:
 
 Everything is a host-side NumPy precompute (at renderer build) feeding one
 extra 2-wide row gather per step in the kernel — the table is ~2 MB for a
-512^3 volume at 8^3 blocks, cache-resident on TPU.
+512^3 volume at 8^3 blocks, small enough to stay cache-resident.
 
 Estimator contract: image-level parity with the reference-exact path (same
 converged expectation, different sample paths / RNG consumption), asserted

@@ -1,10 +1,11 @@
 """Counter/hash RNG and sampling distributions (vectorized, lane-masked).
 
-The reference advances a per-thread uint32 hash chain (PCG-style) and draws a
-*data-dependent* number of uniforms per Woodcock step (branch divergence).
-On TPU every lane executes every branch, so this module exposes *masked*
-draws: the chain advances only where ``mask`` is set, which reproduces the
-sequential per-thread draw order bit-exactly while staying fully vectorized.
+The reference advances a per-thread uint32 hash chain (PCG-style) and draws
+a *data-dependent* number of uniforms per Woodcock step (branch divergence).
+In a vectorized kernel every lane executes every branch, so this module
+exposes *masked* draws: the chain advances only where ``mask`` is set, which
+reproduces the sequential per-thread draw order bit-exactly while staying
+fully vectorized.
 
 The chain seed is a pure function of (global pixel x, global pixel y,
 frame_seed) — mesh-shape independent by construction, which is the

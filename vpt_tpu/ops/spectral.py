@@ -56,7 +56,12 @@ XYZ_TO_SRGB_HOST = np.array(
 
 def xyz_to_rgb_linear(xyz, matrix=XYZ_TO_SRGB_KERNEL):
     """XYZ -> linear sRGB. ``xyz``: (..., 3) array (numpy or jax)."""
-    return xyz @ matrix.T.astype(xyz.dtype)
+    if isinstance(xyz, np.ndarray):
+        return xyz @ matrix.T.astype(xyz.dtype)
+    import jax
+
+    return jax.numpy.matmul(xyz, matrix.T.astype(xyz.dtype),
+                            precision=jax.lax.Precision.HIGHEST)
 
 
 def srgb_gamma(rgb_linear):

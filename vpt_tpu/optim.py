@@ -8,7 +8,7 @@ scan gives exact gradients; the spectral MCM path gets its gradients from
 the score-function surrogate in models/mcm_spectral_grad.
 
 Sharding: images/losses are sharded over the "rays" mesh axis, parameters
-replicated — XLA inserts the gradient all-reduce (psum over ICI)
+replicated — XLA inserts the gradient all-reduce (NCCL psum over NVLink)
 automatically when differentiating replicated params against a sharded loss.
 """
 
@@ -282,10 +282,11 @@ def make_spectral_prb_step(optimizer, steps, n_bins,
 
 
 # --------------------------------------------------------------------------
-# Adaptive scatter-stride policy (VERDICT r4 #1). The r4 replicates proved
-# no FIXED stride is right: stride 4 dominates wall-clock-to-threshold on
-# dense-gradient recoveries but STALLS on sparse-live-voxel recoveries
-# (CONFIGS.md "stride convergence"). The policy has two arms:
+# Adaptive scatter-stride policy. No FIXED stride is right: stride 4
+# converges fastest on dense-gradient recoveries but STALLS on
+# sparse-live-voxel recoveries (tools/convergence_stride.py; the
+# wall-clock side of the trade is to be re-measured on the GPU). The
+# policy has two arms:
 #   1. a cheap structural probe at init — the fraction of voxels whose
 #      density sits where the TF alpha has nonzero density-slope (the only
 #      voxels the density gradient can touch). Sparse live fraction =>
@@ -337,11 +338,9 @@ def auto_initial_policy(init_density, tf_table, stride: int = 4,
       selection; the k-fold table-grad variance is MC-dominated);
     - concentrated support -> IMPORTANCE thinning at the same index
       budget: per-lane step selection proportional to the actual
-      per-table scatter magnitude. Measured on the two_spheres f16
-      recovery (the scene class where uniform stride 4/8 stall and even
-      the exact stride 1 is the prior fallback): importance-4 reaches
-      every eval-loss threshold 1.6x faster than stride 1 (CONFIGS.md
-      "stride convergence", r5).
+      per-table scatter magnitude — the scene class (two_spheres, f16
+      smoothing) where uniform stride 4/8 stall
+      (tools/convergence_stride.py).
 
     The runtime stall detector (EvalStallDetector) remains the safety
     net: on stall, fit_spectral anneals to the exact stride-1 estimator.
@@ -412,9 +411,7 @@ def fit_spectral(
     scene-dependent: the live-gradient probe picks the initial
     (mode, stride) — uniform stride-4 thinning on broad gradient
     support, IMPORTANCE thinning at the same index budget on
-    concentrated support (auto_initial_policy; importance-4 measured
-    1.6x faster than even the exact stride 1 on the sparse recovery,
-    CONFIGS.md "stride convergence" r5) — and while thinned a
+    concentrated support (auto_initial_policy) — and while thinned a
     fixed-seed eval loss is checked every ``eval_every`` iterations; if
     it stalls (EvalStallDetector) the estimator anneals to the exact
     stride 1. An integer forces that stride (lowered to the largest
@@ -444,7 +441,7 @@ def fit_spectral(
                   and (not hasattr(base_ctx.density, "ndim")
                        or base_ctx.density.ndim == 4))
         # super-voxel majorant mode (the sparse-scene accelerator) carries
-        # its gradients through the autodiff surrogate (VERDICT r4 #4);
+        # its gradients through the autodiff surrogate;
         # the taped packed-PRB backward does not support it
         method = ("prb" if packed and base_ctx.majorant is None
                   else "autodiff")
@@ -545,9 +542,9 @@ def fit_spectral(
                 warnings.warn(
                     f"eval loss stalled at iteration {i + 1} under "
                     f"{scatter_mode} thinning (stride {scatter_stride}); "
-                    "annealing to the exact estimator (stride 1) — see "
-                    "CONFIGS.md 'stride convergence' for the thinning "
-                    "trade's scene dependence")
+                    "annealing to the exact estimator (stride 1); the "
+                    "thinning trade is scene-dependent "
+                    "(tools/convergence_stride.py)")
                 scatter_stride = 1
                 scatter_mode = "stride"
                 step = make_step(1, "stride")

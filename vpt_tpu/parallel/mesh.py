@@ -1,4 +1,4 @@
-"""Device-mesh sharding: the TPU-native replacement for the reference's
+"""Device-mesh sharding: the JAX replacement for the reference's
 per-pixel GPU dispatch grid (SURVEY.md §2.10).
 
 Axes:
@@ -14,7 +14,7 @@ are bit-identical across mesh shapes — including 1 device.
 
 Gradient all-reduce in the inverse-rendering path needs no explicit psum:
 differentiating a replicated parameter against a rays-sharded loss makes
-XLA insert the all-reduce (over ICI) automatically.
+XLA insert the all-reduce (NCCL over NVLink) automatically.
 """
 
 from __future__ import annotations

@@ -42,12 +42,6 @@ def initialize_distributed():
     return True
 
 
-def _sync(x) -> float:
-    import jax.numpy as jnp
-
-    return float(jnp.sum(x))
-
-
 def collective_microbench(mesh, size_mb: float = 64.0, reps: int = 10) -> dict:
     """Measure psum and all_gather throughput over ``mesh`` ("rays" axis)."""
     import jax
@@ -79,11 +73,11 @@ def collective_microbench(mesh, size_mb: float = 64.0, reps: int = 10) -> dict:
     out = {}
     for name, fn in [("psum", do_psum), ("all_gather", do_allgather)]:
         r = fn(xs)
-        _sync(r)
+        jax.block_until_ready(r)
         t0 = time.perf_counter()
         for _ in range(reps):
             r = fn(xs)
-        _sync(r)
+        jax.block_until_ready(r)
         dt = (time.perf_counter() - t0) / reps
         # bytes moved per device (ring lower bound): 2(n-1)/n * size
         moved = 2 * (n - 1) / max(n, 1) * elems * 4
@@ -189,7 +183,7 @@ def scaling_sweep(
     Each mesh size renders an (H, W) = (rows_per_device * n, width)
     framebuffer with the H axis sharded over "rays" — per-device lanes are
     ``rows_per_device * width`` for EVERY device count, a provable
-    constant-per-device-work weak-scaling design (VERDICT r4 #2: the old
+    constant-per-device-work weak-scaling design (the old
     square-framebuffer sweep grew per-device pixels linearly with n, which
     overstates efficiency on hardware where throughput is sub-linear in
     lane count and understates it on a shared CPU host). Efficiency is
@@ -234,10 +228,10 @@ def scaling_sweep(
         )
         # warm (compile), then time one full K-dispatch program
         state, img = _rect_render_many(state, ctx, seeds, steps, 12)
-        _sync(img)
+        jax.block_until_ready(img)
         t0 = time.perf_counter()
         state, img = _rect_render_many(state, ctx, seeds, steps, 12)
-        _sync(img)
+        jax.block_until_ready(img)
         dt = time.perf_counter() - t0
         rays = H * width * dispatches
         rate = rays / dt

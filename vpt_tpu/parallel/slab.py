@@ -1,5 +1,5 @@
 """Slab-sharded volumes: render with the density grid partitioned across
-devices (for volumes beyond one chip's HBM), bit-identical to the
+devices (for volumes beyond one device's memory), bit-identical to the
 replicated path.
 
 Design (SURVEY.md §2.10 "TP analog"): the packed corner table shards along
@@ -7,11 +7,11 @@ its leading (z) dimension over the "rays" mesh axis — each device owns a
 contiguous slab of rows. A Woodcock step's volume fetch becomes a *routed
 distributed gather*:
 
-    1. all_gather the flat row indices of every device's rays  (ICI)
+    1. all_gather the flat row indices of every device's rays  (NCCL)
     2. each owner gathers values for the full request set from its slab
        (rows outside the slab contribute zeros)
     3. reduce_scatter sums the per-owner partial results and hands each
-       device back exactly its own rays' rows                  (ICI)
+       device back exactly its own rays' rows                  (NCCL)
 
 Because the gathered *values* are identical regardless of where rows are
 stored, slab-mode renders are bit-identical to replicated-volume renders —
@@ -74,7 +74,7 @@ def _distributed_rows(packed_slab, flat_idx, rows_per_device, hw8):
     safe = jnp.clip(local, 0, rows_per_device - 1)
     rows = jnp.take(packed_slab.reshape(-1, 8), safe, axis=0)
     # dequantize BEFORE masking/summing: a u8/bf16 auto-packed table would
-    # otherwise feed raw integer codes into the lerp (ADVICE r4); for f32
+    # otherwise feed raw integer codes into the lerp; for f32
     # tables this is an identity passthrough (bit-identical)
     from vpt_tpu.ops.interp import _dequantize_rows
 
@@ -119,9 +119,10 @@ def _sample_volume_slab(packed_slab, u, v, w, rows_per_device, dims, mode):
 
 def _distributed_scatter_add(adj_slab, flat_idx, updates, rows_per_device):
     """The routed adjoint scatter — the exact transpose of
-    ``_distributed_rows``: all_gather every device's (row index, update row)
-    pairs over ICI, then each owner scatter-adds the subset that falls in
-    its slab. No device ever materializes the full packed adjoint.
+    ``_distributed_rows``: all_gather every device's (row index, update
+    row) pairs (NCCL over NVLink), then each owner scatter-adds the subset
+    that falls in its slab. No device ever materializes the full packed
+    adjoint.
 
     ``adj_slab``: (rows_per_device, C) local adjoint slab; ``flat_idx``:
     (N,) local GLOBAL row indices; ``updates``: (N, C) local update rows.
@@ -214,7 +215,7 @@ def prb_grads_slab(state, ctx, mesh, volume_dims, g_image, steps: int,
                    scatter_stride: int = 1, scatter_mode: str = "stride",
                    lower_only: bool = False):
     """Packed-PRB density gradients of one render dispatch with the volume
-    slab-sharded (VERDICT r3 #6: the composition matrix's last cell).
+    slab-sharded (the composition matrix's last cell).
 
     Same taped path-replay backward as
     kernels.spectral_backward.spectral_backward_packed with wrt={"density"},
@@ -410,7 +411,7 @@ def _pack_slab_rows(raw, lo, slab_z: int, D: int):
     pad_packed_for_slabs. Runs inside shard_map; the FULL packed table
     (8x raw bytes) is never materialized on any device — this is what
     makes the slab optimizer loop viable for volumes whose packed table
-    exceeds HBM while the raw grid still fits replicated."""
+    exceeds device memory while the raw grid still fits replicated."""
     zs = lo + jnp.arange(slab_z, dtype=jnp.int32)
     p0 = jnp.take(raw, jnp.clip(zs - 1, 0, D - 1), axis=0)
     p1 = jnp.take(raw, jnp.clip(zs, 0, D - 1), axis=0)
@@ -438,21 +439,20 @@ def make_spectral_prb_step_slab(optimizer, mesh, volume_dims, steps: int,
                                 n_slab_z: int | None = None):
     """Jitted Adam step recovering DENSITY through the slab-sharded window
     backward — fit_spectral's engine for volumes whose packed corner table
-    exceeds one device's HBM (VERDICT r4 #3 closes the slab x optimizer
-    seam).
+    exceeds one device's memory.
 
-    Design (the documented choice): the raw density param and the
-    optimizer state stay REPLICATED (a 512^3 raw grid is 512 MB — it is
-    the 8x packed table that breaks HBM); each step, every device packs
-    ONLY ITS z-slab of the corner table in-graph (_pack_slab_rows) so the
-    full packed table never exists anywhere, the K-dispatch window runs
-    with routed distributed gathers, the per-step volume-adjoint scatters
-    route to their slab owners, the packed->raw contraction is
-    distributed, and the resulting z-sharded raw gradient is gathered
-    back to the replicated param for the Adam update. A fully
-    param-sharded variant (z-sharded raw + sharded Adam state) is the
-    next step beyond if raw + moments ever exceed HBM; the gradient and
-    contraction machinery here already supports it.
+    Design (the documented choice): the raw density param and the optimizer
+    state stay REPLICATED (a 512^3 raw grid is 512 MB — it is the 8x packed
+    table that outgrows device memory); each step, every device packs ONLY
+    ITS z-slab of the corner table in-graph (_pack_slab_rows) so the full
+    packed table never exists anywhere, the K-dispatch window runs with
+    routed distributed gathers, the per-step volume-adjoint scatters route
+    to their slab owners, the packed->raw contraction is distributed, and
+    the resulting z-sharded raw gradient is gathered back to the replicated
+    param for the Adam update. A fully param-sharded variant (z-sharded raw
+    + sharded Adam state) is the next step beyond if raw + moments ever
+    exceed device memory; the gradient and contraction machinery here
+    already supports it.
 
     Returns step(istate, state0, ctx, seeds, target) -> (istate, loss):
     ``ctx``: the renderer ctx with FUSED 18-wide TF (pack_tables including
@@ -568,10 +568,10 @@ def fit_spectral_slab(target_image, renderer, camera, init_density, mesh,
                       learning_rate: float = 0.02, seed: int = 0,
                       scatter_stride: int = 1, scatter_mode: str = "stride",
                       progress=None):
-    """End-to-end slab-sharded density recovery (the user-facing seam of
-    VERDICT r4 #3): like optim.fit_spectral(method="prb",
-    wrt={"density"}) but with the volume slab-sharded over ``mesh`` for
-    larger-than-HBM packed tables.
+    """End-to-end slab-sharded density recovery: like
+    optim.fit_spectral(method="prb", wrt={"density"}) but with the volume
+    slab-sharded over ``mesh`` for packed tables larger than one device's
+    memory.
 
     ``renderer``: an MCMSpectralRenderer built with
     pack_tables={"material_tf", "light_spectrum"} (fused TF, RAW density
@@ -593,8 +593,12 @@ def fit_spectral_slab(target_image, renderer, camera, init_density, mesh,
 
     params = {"density": jnp.asarray(init_density)}
     optimizer = optax.adam(learning_rate)
-    istate = InverseState(params, optimizer.init(params),
-                          jnp.zeros((), jnp.int32))
+    # placed as the step returns it (replicated over the mesh), so the
+    # second step does not recompile for a new input sharding
+    istate = jax.device_put(
+        InverseState(params, optimizer.init(params),
+                     jnp.zeros((), jnp.int32)),
+        NamedSharding(mesh, P()))
     step = make_spectral_prb_step_slab(
         optimizer, mesh, (D, H, W), steps, n_bins, renderer.resolution,
         streams=renderer.streams, scatter_stride=scatter_stride,

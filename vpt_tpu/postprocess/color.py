@@ -10,6 +10,7 @@ are the equivalent row-major math):
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -52,7 +53,8 @@ YUV2RGB_BT709 = np.array([
 
 
 def _apply(m, v):
-    return v @ jnp.asarray(m).T
+    return jnp.matmul(v, jnp.asarray(m).T,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def rgb2xyz(rgb):

@@ -11,50 +11,64 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import shutil
+import subprocess
 from typing import Optional
 
 import numpy as np
 
-_LIB_PATHS = [
-    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))),
-                 "native", "libvptio.so"),
-    os.path.join(os.path.dirname(__file__), "libvptio.so"),
-]
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "native")
+# built from the sources by `make -C native` (or build()); not tracked
+_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libvptio.so")
+
+
+def build() -> bool:
+    """Compile libvptio from native/vptio.cpp with ``make -C native``.
+    Returns whether the library is available afterwards (False when make
+    or the sources are missing, or the compile fails)."""
+    if shutil.which("make") is None or not os.path.exists(
+            os.path.join(_NATIVE_DIR, "Makefile")):
+        return False
+    subprocess.run(["make", "-s", "-C", _NATIVE_DIR], capture_output=True,
+                   timeout=300)
+    _lib.cache_clear()
+    return available()
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> Optional[ctypes.CDLL]:
-    for path in _LIB_PATHS:
-        if os.path.exists(path):
-            lib = ctypes.CDLL(path)
-            lib.vptio_zip_open.restype = ctypes.c_void_p
-            lib.vptio_zip_open.argtypes = [ctypes.c_char_p]
-            lib.vptio_zip_close.argtypes = [ctypes.c_void_p]
-            lib.vptio_zip_count.restype = ctypes.c_int64
-            lib.vptio_zip_count.argtypes = [ctypes.c_void_p]
-            lib.vptio_zip_name.restype = ctypes.c_char_p
-            lib.vptio_zip_name.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-            lib.vptio_zip_read.restype = ctypes.c_int64
-            lib.vptio_zip_read.argtypes = [
-                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
-            ]
-            lib.vptio_load_raw_f32.restype = ctypes.c_int
-            lib.vptio_load_raw_f32.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_int,
-            ]
-            lib.vptio_place_block_f32.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ]
-            lib.vptio_pack_corners_f32.restype = ctypes.c_int
-            lib.vptio_pack_corners_f32.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_int,
-            ]
-            return lib
-    return None
+    if not os.path.exists(_LIB_PATH):
+        return None
+    lib = ctypes.CDLL(_LIB_PATH)
+    lib.vptio_zip_open.restype = ctypes.c_void_p
+    lib.vptio_zip_open.argtypes = [ctypes.c_char_p]
+    lib.vptio_zip_close.argtypes = [ctypes.c_void_p]
+    lib.vptio_zip_count.restype = ctypes.c_int64
+    lib.vptio_zip_count.argtypes = [ctypes.c_void_p]
+    lib.vptio_zip_name.restype = ctypes.c_char_p
+    lib.vptio_zip_name.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.vptio_zip_read.restype = ctypes.c_int64
+    lib.vptio_zip_read.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
+    ]
+    lib.vptio_load_raw_f32.restype = ctypes.c_int
+    lib.vptio_load_raw_f32.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int,
+    ]
+    lib.vptio_place_block_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.vptio_pack_corners_f32.restype = ctypes.c_int
+    lib.vptio_pack_corners_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int,
+    ]
+    return lib
 
 
 def available() -> bool:

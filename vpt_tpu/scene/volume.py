@@ -1,6 +1,6 @@
 """Volume: a density grid assembled from reader blocks, ready for sampling.
 
-TPU-native equivalent of Volume.js / WebGPUVolume.js: instead of a 3D GPU
+JAX equivalent of Volume.js / WebGPUVolume.js: instead of a 3D GPU
 texture + hardware sampler, the density grid is a device array sampled
 explicitly (nearest / trilinear / quasi-cubic) inside the render kernels.
 Block streaming (WebGPUVolume.js:66-93: per-placement writeTexture) becomes

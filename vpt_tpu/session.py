@@ -1,6 +1,6 @@
 """RenderSession — the host-side rendering runtime.
 
-TPU-native shape of the reference's L3 rendering context
+JAX shape of the reference's L3 rendering context
 (/root/reference/src/js/WebGPURenderingContext.js): renderer/tonemapper
 lifecycle (chooseRenderer/chooseToneMapper, :147-179), camera-change ->
 reset contract (:41-45), the frame loop (Ticker.js becomes an explicit

@@ -1,4 +1,4 @@
-"""Typed config system — the TPU build's equivalent of the reference's
+"""Typed config system — this build's equivalent of the reference's
 property-metadata + auto-UI layer (PropertyBag.js + registerProperties +
 DialogConstructor). Each renderer config is a frozen dataclass whose fields
 carry the same name/min/max/default metadata; the reference's

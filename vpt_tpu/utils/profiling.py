@@ -1,15 +1,15 @@
 """Profiling & observability (SURVEY.md §5 tracing entry).
 
 The reference's closest analogs are GPU object labels and per-block progress
-events; the TPU build gets real tooling:
+events; here JAX's profiler does the work:
 
   - ``trace(logdir)``: context manager around ``jax.profiler`` — dumps a
     TensorBoard/XProf trace of everything dispatched inside.
   - ``annotate(name)``: TraceAnnotation for labeling host-side phases.
   - ``Counters``: cheap throughput accounting (paths/s, rays/s, steps/s)
     shared by bench.py and session metrics.
-  - ``timed(fn)``: decorator measuring *synchronized* device time (forces a
-    scalar fetch — plain block_until_ready can lie through async relays).
+  - ``timed(fn)``: wall time of a call that ends in ``block_until_ready``
+    (JAX dispatch is asynchronous; without the wait it times the enqueue).
 """
 
 from __future__ import annotations
@@ -39,17 +39,6 @@ def annotate(name: str):
     return jax.profiler.TraceAnnotation(name)
 
 
-def synchronize(x) -> float:
-    """Force full device completion by fetching a scalar reduction of ``x``.
-
-    ``block_until_ready`` can return early through async execution relays;
-    a data fetch cannot. Returns the fetched value (for free sanity checks).
-    """
-    import jax.numpy as jnp
-
-    return float(jnp.sum(x))
-
-
 @dataclass
 class Counters:
     """Accumulates work counters and reports rates."""
@@ -66,14 +55,10 @@ class Counters:
         return {f"{k}_per_s": v / dt for k, v in self.work.items()} | {"seconds": dt}
 
 
-def timed(fn, *args, sync_output=True, **kw):
-    """Run ``fn`` and return (result, synchronized_seconds)."""
-    t0 = time.perf_counter()
-    out = fn(*args, **kw)
-    if sync_output:
-        import jax
+def timed(fn, *args, **kw):
+    """Run ``fn`` and return (result, seconds until the result is ready)."""
+    import jax
 
-        leaves = jax.tree.leaves(out)
-        if leaves:
-            synchronize(leaves[0])
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(fn(*args, **kw))
     return out, time.perf_counter() - t0
